@@ -1,14 +1,14 @@
-"""relp_tpu — a TPU-native exact linear-programming framework.
+"""relp_tpu — an exact linear-programming framework on a JAX accelerator.
 
 A ground-up re-design of the capabilities of ``vandenheuvel/relp`` (an exact,
-single-core, rational-arithmetic revised-simplex library in Rust) for TPU
-hardware via JAX/XLA/Pallas:
+single-core, rational-arithmetic revised-simplex library in Rust) for an
+accelerator via JAX/XLA (an NVIDIA GPU; CPU for tests):
 
 * The *data pipeline* (MPS import, GeneralForm, presolve, prescale,
   standardization) runs host-side in exact rational arithmetic
   (``fractions.Fraction``), mirroring the semantics of the reference
   (reference: src/io, src/data/linear_program).
-* The *simplex engine* runs on TPU in floating point: dense tiled
+* The *simplex engine* runs on the device in floating point: dense padded
   standard-form arrays, jitted two-phase revised simplex with product-form or
   LU basis inverses and Dantzig / steepest-edge pricing
   (reference semantics: src/algorithm/two_phase).
@@ -17,8 +17,8 @@ hardware via JAX/XLA/Pallas:
   arithmetic (Dixon p-adic lifting) and optimality is verified via exact
   reduced costs (reference analog: relp-num arithmetic +
   tableau debug_assert_in_basic_feasible_solution_state).
-* *Scale-out* uses jax.sharding meshes: column-sharded pricing with
-  all-reduce argmax over ICI, and vmapped scenario batches.
+* *Scale-out* uses jax.sharding meshes: column-sharded pricing with a
+  cross-device all-reduce argmax, and vmapped scenario batches.
 """
 
 from relp_tpu.config import SolverConfig, default_config

@@ -13,7 +13,7 @@ import sys
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="relp_tpu", description="TPU-native exact LP solver"
+        prog="relp_tpu", description="exact LP solver on a JAX accelerator"
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -278,6 +278,15 @@ def main(argv=None) -> int:
             "iterations": result.stats.iterations,
             "phase1_iterations": result.stats.phase1_iterations,
             "wall_time_s": round(result.stats.wall_time_s, 3),
+            "stats": {
+                "chunks": result.stats.chunks,
+                "refactorizations": result.stats.refactorizations,
+                "host_refactors": result.stats.host_refactors,
+                "escalations": result.stats.escalations,
+                "exact_cleanup_pivots": result.stats.exact_cleanup_pivots,
+                "certify_time_s": result.stats.certify_time_s,
+                "device_shape": result.stats.device_shape,
+            },
         }
         if args.values and solution is not None:
             payload["values"] = {

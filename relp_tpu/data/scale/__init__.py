@@ -12,7 +12,7 @@ Two scalers, mirroring and re-architecting reference
   bounds by ``col_j``; a solution of the scaled problem maps back via
   ``x_j *= col_j``.
 * :func:`equilibrate` — pow-2 geometric-mean equilibration of the lowered
-  device arrays (TPU redesign: scaling as a float preconditioner that is
+  device arrays (device redesign: scaling as a float preconditioner that is
   invisible to the exact pipeline — a positive scaling never changes the
   optimal basis, and the exact certifier works on unscaled data).
 """

@@ -1,6 +1,6 @@
 """Pow-2 equilibration of lowered device arrays.
 
-TPU-side prescaling (new design; the reference's factor-power framework
+Device-side prescaling (new design; the reference's factor-power framework
 degenerates naturally to base-2 equilibration for floats, SURVEY.md comp. 9):
 iterative geometric-mean scaling with factors rounded to powers of two, so
 scaling is exact in floating point and never perturbs mantissas.

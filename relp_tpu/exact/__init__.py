@@ -1,7 +1,8 @@
 """Exact rational verification substrate.
 
 The reference computes *everything* in exact rational arithmetic (relp-num).
-Here, floats find the optimal basis fast on TPU, and this package restores
+Here, floats find the optimal basis fast on the device, and this package
+restores
 exactness on the host:
 
 * :mod:`relp_tpu.exact.dixon` — exact rational linear solves via Dixon p-adic

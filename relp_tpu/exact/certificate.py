@@ -18,7 +18,7 @@ solver's verdict over the *standardized provider-level* LP
 Rationals are serialized as exact ``"p/q"`` strings; certificates survive
 JSON round-trips bit-for-bit.  Reference semantic anchor: the BFS-state
 invariants of ``debug_assert_in_basic_feasible_solution_state``
-(/root/reference/src/algorithm/two_phase/tableau/mod.rs:319-357), turned
+(reference: src/algorithm/two_phase/tableau/mod.rs:319-357), turned
 into a portable artifact.
 """
 

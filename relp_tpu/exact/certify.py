@@ -1,6 +1,6 @@
 """Exact certification and repair of a candidate optimal basis.
 
-Given the basis the float TPU solver found, this module re-derives the exact
+Given the basis the float device solver found, this module re-derives the exact
 basic solution and duals (Dixon solves), checks primal feasibility and exact
 nonnegative reduced costs — the same invariants the reference asserts in
 ``debug_assert_in_basic_feasible_solution_state`` (tableau/mod.rs:319-357) —
@@ -316,7 +316,7 @@ def exact_dual_bounded(
 
     This is the textbook dual-feasible cold start for an all-equality LP
     with c >= 0 (QAP12/QAP15, whose primal phase-1 walks pin to a 200k-pivot
-    degenerate plateau — docs/ROADMAP.md): a basis of signed zero-cost
+    degenerate plateau — ROADMAP.md): a basis of signed zero-cost
     artificials gives y = 0 and d_j = c_j >= 0 exactly, and dual pivots
     drive every artificial to exactly 0 (or out of the basis) while reduced
     costs stay exactly nonnegative by the ratio test.  Unlike
@@ -353,8 +353,8 @@ def exact_dual_bounded(
         # dual step strictly increases the dual objective — termination in
         # at most #bases pivots with no anti-cycling rule needed.  The
         # caller removes the perturbation afterwards with an exact primal
-        # cleanup on the TRUE costs from the returned basis (VERDICT r3
-        # option: "cost perturbation with exact removal at optimality").
+        # cleanup on the TRUE costs from the returned basis (cost
+        # perturbation with exact removal at optimality).
         import random as _random
 
         rng = _random.Random(perturb_seed)

@@ -39,20 +39,17 @@ _MODP_CHECKED = False
 
 
 def _load_modp():
-    """Native mod-p kernels (native/modp.cpp) when built."""
+    """Native mod-p kernels (native/modp.cpp), built at first use."""
     global _MODP_LIB, _MODP_CHECKED
     if _MODP_CHECKED:
         return _MODP_LIB
     _MODP_CHECKED = True
     import ctypes
-    import os
 
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libmodp.so",
-    )
-    if os.path.exists(path):
+    from relp_tpu.utils.native_build import native_library
+
+    path = native_library("libmodp.so")
+    if path is not None:
         lib = ctypes.CDLL(path)
         lib.modp_invert.restype = ctypes.c_int32
         lib.modp_invert.argtypes = [

@@ -1,8 +1,8 @@
-"""Restarted PDHG (PDLP-style) — the modern first-order LP method, TPU-native.
+"""Restarted PDHG (PDLP-style) — the modern first-order LP method on a device.
 
 Beyond reference scope: the reference is simplex-only.  First-order LP
 solvers (PDLP / cuPDLP / cuPDLPx) are the GPU-era alternative whose whole
-inner loop is two matvecs — exactly what the MXU is built for: no
+inner loop is two matvecs — dense streaming work an accelerator does well: no
 sequential pivoting, no basis factorization, trivially sharded, and
 arbitrarily batchable.  This implementation follows the PDLP recipe
 (Applegate et al. 2021; cuPDLPx refinements):
@@ -175,9 +175,9 @@ def pdhg_solve(
     ``row_axis`` and columns over ``col_axis`` (either may be absent from
     the mesh or ``None`` for 1-D sharding), x/c/u follow the columns,
     y/b the rows.  GSPMD turns the two matvecs into per-shard partial
-    products plus ``psum`` combines over ICI — PDHG has *no* sequential
+    products plus cross-device ``psum`` combines — PDHG has *no* sequential
     pivot state, so unlike the simplex carry nothing is replicated and the
-    method scales to LPs far beyond one chip's HBM.  Zero-padding (zero
+    method scales to LPs far beyond one device's memory.  Zero-padding (zero
     rows, zero-width ``u=0`` columns) makes every shard equal-sized; the
     padding is exactly absorbing (padded x stays clipped to 0, padded y
     stays 0 since the padded rows have b=0 and no nonzeros).

@@ -3,14 +3,14 @@
 Assembles the same :class:`~relp_tpu.io.mps.MPS` structure as the pure-Python
 parser (including the reference's rows-sorted-by-name convention), but with
 tokenization, name interning, and exact decimal parsing done in C++
-(native/mps_parser.cpp).  Falls back transparently when the shared library
-has not been built.
+(native/mps_parser.cpp).  The library is built from source at first use
+(relp_tpu.utils.native_build); callers fall back to the pure-Python parser
+when it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 from fractions import Fraction
 from typing import Dict, List, Optional, Tuple
 
@@ -26,12 +26,6 @@ from relp_tpu.io.mps import (
     RangeGroup,
     Rhs,
     Row,
-)
-
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "libmps_parser.so",
 )
 
 _lib = None
@@ -52,9 +46,12 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    from relp_tpu.utils.native_build import native_library
+
+    path = native_library("libmps_parser.so")
+    if path is None:
         return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib = ctypes.CDLL(path)
     lib.mps_parse.restype = ctypes.c_void_p
     lib.mps_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32]
     lib.mps_num_records.restype = ctypes.c_int64
@@ -91,7 +88,7 @@ def parse_native(text: str, fixed: bool) -> MPS:
     """Parse via the C++ library; raises on parse errors."""
     lib = _load()
     if lib is None:
-        raise RuntimeError("native parser not built (run make in native/)")
+        raise RuntimeError("native parser unavailable (make -C native failed)")
     data = text.encode()
     handle = lib.mps_parse(data, len(data), 1 if fixed else 0)
     try:

@@ -6,7 +6,7 @@ Two halves:
   (mirror of reference src/data/linear_algebra: sorted-tuple sparse storage
   with typed row/column-major ordering).
 * :mod:`relp_tpu.linalg.device` — padding and layout helpers for lowering
-  exact host data to dense tiled device arrays (new, TPU-specific).
+  exact host data to dense padded device arrays (new, device-specific).
 """
 
 from relp_tpu.linalg.sparse import SparseVector, SparseColumnMatrix

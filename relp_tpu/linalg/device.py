@@ -1,7 +1,8 @@
-"""Device lowering helpers: padding exact host data into dense tiled arrays.
+"""Device lowering helpers: padding exact host data into dense arrays.
 
-TPU-specific design (no reference counterpart): the MXU wants static shapes
-padded to lane multiples (128).  Padding rows/columns are zero; the simplex
+Device-specific design (no reference counterpart): jitted kernels want
+static shapes, so dimensions are padded to a multiple (``pad_to``) and
+nearby problem sizes share one compiled executable.  Padding rows/columns are zero; the simplex
 state machinery guarantees padded rows stay pinned to identity basis columns
 so they never interact with the solve (see relp_tpu.simplex.lowering).
 """

@@ -2,7 +2,7 @@
 
 Beyond reference scope (the reference's README roadmap lists branch & bound
 as unimplemented; its miplib tests stop at root relaxations,
-/root/reference/tests/miplib/mod.rs:48-72), and TPU-native by construction:
+tests/miplib/mod.rs:48-72), and built for a device by construction:
 
 * **Branching (almost) never changes the constraint matrix.**  Upper-bound
   branches tighten the variable's existing bound row — a pure rhs tweak.
@@ -15,13 +15,13 @@ as unimplemented; its miplib tests stop at root relaxations,
 * **Within a wave the frontier is a perturbed-rhs scenario family** —
   every node shares base matrix + root cuts + the current branch rows and
   differs only in rhs, exactly what the batched scenario driver solves in
-  lockstep on one chip (``solve_batch(shared_structure=True)``),
+  lockstep on one device (``solve_batch(shared_structure=True)``),
   dual-simplex warm-restarted from the root optimal basis extended with
   the branch rows' surplus columns: the extension is block-triangular, so
   the duals (hence dual feasibility) are exactly preserved and nodes skip
   both phases.  The matrix changes shape only when a *new* variable is
   branched below for the first time (``pad_to`` buckets absorb the
-  recompiles on TPU).
+  recompiles).
 * **Everything is exact.**  Node relaxations are certified rational
   optima (Dixon); bounds, incumbents, pruning comparisons, and integrality
   checks are Fraction arithmetic; INFEASIBLE nodes carry exact Farkas

@@ -2,7 +2,7 @@
 
 Beyond reference scope: Gomory cuts are the third unimplemented item on the
 reference's README roadmap (with branch & bound and floating-point
-arithmetic — /root/reference/README.md:60-70).
+arithmetic — reference README.md:60-70).
 
 Everything is exact: the tableau row is re-derived from the root basis with
 Dixon solves (one ``B^T y = e_i`` per cut via the cached

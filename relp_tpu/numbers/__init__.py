@@ -5,7 +5,7 @@ RationalBig, Binary, One, sign traits, prime factorization — SURVEY.md comp. 1
 Here the exact side is Python's arbitrary-precision ``int`` and
 ``fractions.Fraction`` (the analog of RationalBig); fixed-width rationals are
 pointless in Python.  The zero-sized ``Binary``/``One`` tricks of the reference
-are replaced by plain constants — on TPU, artificial costs and incidence
+are replaced by plain constants — on the device, artificial costs and incidence
 entries are just 0.0/1.0 entries of dense arrays.
 
 Device-side, numbers are float32/float64; exactness is recovered by the

@@ -1,15 +1,1 @@
-"""Hand-written Pallas TPU kernels for the hot ops.
-
-The XLA-compiled fused iteration is already near the memory-bound limit for
-the big pricing scans (measured: ~1 HBM pass of the tableau per pivot); the
-kernels here fuse the scan-side elementwise work (reduced-cost update +
-Goldfarb gamma update) into the single pass over the tableau, removing the
-intermediate (3, N) scan product and its extra VMEM round trips.
-
-Selectable via ``SolverConfig(pallas_scan=True)``; measured results are
-recorded in docs/ROADMAP.md.
-"""
-
-from relp_tpu.ops.pallas_scan import fused_price_scan
-
-__all__ = ["fused_price_scan"]
+"""Device arithmetic building blocks (double-float EFT arithmetic)."""

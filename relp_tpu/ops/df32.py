@@ -1,9 +1,10 @@
 """Double-float (two-f32) compensated arithmetic.
 
-TPU v5e emulates f64 (~40x slower); the escalation ladder's f64 retry is
-therefore expensive.  This module provides "double-float" arithmetic — each
-value is an unevaluated sum ``hi + lo`` of two f32s, giving ~2^-48 relative
-accuracy (f64-grade for simplex-carry purposes) with *native f32 VPU ops*.
+On a device without native f64, f64 is emulated and the escalation
+ladder's f64 retry is expensive.  This module provides "double-float"
+arithmetic — each value is an unevaluated sum ``hi + lo`` of two f32s,
+giving ~2^-48 relative accuracy (f64-grade for simplex-carry purposes) with
+*native f32 ops*.
 
 Built on error-free transformations (EFT):
 
@@ -11,9 +12,10 @@ Built on error-free transformations (EFT):
 * ``two_prod`` (Dekker split, no FMA required) — exact for f32 inputs:
   products of 12-bit halves are exactly representable in a 24-bit mantissa.
 
-Both were verified to survive XLA compilation bit-exactly on CPU and on TPU
-v5e (no unsafe FP reassociation in either backend); see
-tests/test_df32.py::test_eft_exactness.
+Both survive XLA compilation bit-exactly on the CPU and on an NVIDIA H100
+(no unsafe FP reassociation, and no FMA contraction that breaks the split):
+tests/test_df32.py::test_eft_exactness_under_jit checks the CPU, and the
+"df32 EFT" phase of chip_smoke.py the card.
 
 The simplex carry (the state the reference maintains exactly in rationals —
 B^-1, x_B, pi; carry/mod.rs:46-66) drifts under f32 rank-1 updates *and*
@@ -141,7 +143,7 @@ def df_matvec(Mh, Ml, vh, vl):
     """(df matrix) @ (df vector) -> df vector, fully compensated.
 
     Products are exact (two_prod) with first-order cross terms; the j-sum is
-    the pairwise df reduction.  All VPU-native f32 — this is the FTRAN
+    the pairwise df reduction.  All native f32 — this is the FTRAN
     ``w = B^-1 a_q`` that f32 accumulation gets wrong on ill-conditioned
     bases (the CYCLE/GROW7 failure mode).
     """

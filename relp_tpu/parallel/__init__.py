@@ -6,7 +6,7 @@ The reference is single-threaded; all parallelism here is new design
 * :mod:`relp_tpu.parallel.mesh` — mesh construction helpers.
 * :mod:`relp_tpu.parallel.sharded` — the constraint store sharded by columns
   across the mesh ("tp" for LPs): pricing runs as a local scan per shard and
-  XLA inserts the all-reduce argmax over ICI (GSPMD via sharding
+  XLA inserts the all-reduce argmax across devices (GSPMD via sharding
   annotations — the jax-native alternative to hand-written collectives).
 * :mod:`relp_tpu.parallel.batch` — vmapped scenario batches ("dp" for LPs):
   many LPs advance in lockstep, each with its own state, sharded over the

@@ -14,7 +14,8 @@ def make_mesh(
     """Build a Mesh over the available devices.
 
     ``shape=None`` puts all devices on the last ("col") axis — column-sharded
-    pricing rides ICI; the "batch" axis shards independent LP scenarios.
+    pricing with a cross-device argmax combine; the "batch" axis shards
+    independent LP scenarios.
     """
     import jax
     from jax.sharding import Mesh
@@ -42,9 +43,9 @@ def initialize_multihost(
 
     Call once per process before building meshes; afterwards
     ``jax.devices()`` spans all hosts and :func:`make_mesh` shards across
-    them — put the scenario-batch axis across hosts (DCN) and the column
-    axis within a slice (ICI).  With no arguments, JAX auto-detects the
-    environment (TPU pods / GKE).
+    them — put the scenario-batch axis across hosts and the column axis
+    within a host.  With no arguments, JAX must detect a cluster
+    environment it knows (e.g. SLURM); elsewhere pass all three.
     """
     import jax
 

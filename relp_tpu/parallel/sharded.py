@@ -1,14 +1,14 @@
 """Column-sharded simplex.
 
 The constraint store (the (M, N) tableau) is sharded by columns across the
-mesh's "col" axis — the TPU replacement for the reference's lazy
+mesh's "col" axis — the device replacement for the reference's lazy
 ``MatrixProvider`` scan (pricing is the only full-n pass, SURVEY.md section 5
 "long-context" analog).  The carry state (Binv, xB, pi, basis) is small and
 replicated.
 
 Under ``jit`` with these shardings, XLA/GSPMD compiles the pricing matvec
-``pi @ A`` into a per-shard local scan and inserts the argmax combine over
-ICI automatically; the entering column gather becomes an all-gather of one
+``pi @ A`` into a per-shard local scan and inserts the cross-device argmax
+combine automatically; the entering column gather becomes an all-gather of one
 (M,) column.  This is the "annotate shardings, let XLA insert collectives"
 recipe — no hand-written NCCL analog.
 """

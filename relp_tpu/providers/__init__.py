@@ -5,7 +5,7 @@ Mirror of reference ``src/algorithm/two_phase/matrix_provider``: a
 standard-form LP — columns are generated on demand and never materialized as
 one big host matrix.  Custom providers (e.g. the network kit) plug in here.
 
-The TPU twist: every provider can *lower* itself to dense tiled device arrays
+The device twist: every provider can *lower* itself to dense device arrays
 (:meth:`MatrixProvider.to_arrays`), which is what the device simplex consumes;
 providers with huge column counts can instead lower shard-by-shard for the
 column-sharded engine in :mod:`relp_tpu.parallel`.

@@ -6,7 +6,7 @@ standard-form LP — ``column(j)``, ``cost_value(j)``, ``right_hand_side()``,
 generator, shard server) can be a provider; columns need never exist as one
 big matrix on the host.
 
-TPU addition: :meth:`to_arrays` lowers the provider to dense float arrays
+Device addition: :meth:`to_arrays` lowers the provider to dense float arrays
 (optionally a column sub-range for sharded lowering).
 """
 
@@ -59,7 +59,7 @@ class MatrixProvider:
         """Strip provider-synthesized (slack) columns from a BFS."""
         raise NotImplementedError
 
-    # --- TPU lowering ---
+    # --- device lowering ---
 
     def to_arrays(
         self,

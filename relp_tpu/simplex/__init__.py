@@ -1,6 +1,7 @@
-"""The TPU simplex engine.
+"""The device simplex engine.
 
-Re-architecture of the reference's ``src/algorithm/two_phase`` for TPU:
+Re-architecture of the reference's ``src/algorithm/two_phase`` for a JAX
+accelerator:
 
 * All solver state (basis inverse, b-bar, pi, basis indices, steepest-edge
   weights) lives in static-shape device arrays — the reference's ``Carry``
@@ -10,7 +11,7 @@ Re-architecture of the reference's ``src/algorithm/two_phase`` for TPU:
   update, reference call stack SURVEY.md section 3.3) is a fused jitted step;
   iterations run in chunks inside ``lax.while_loop`` to amortize dispatch.
 * Refactorization (reference: LU refactor after 30 eta updates) is an
-  MXU-native f32 inverse refined to f64 by Newton-Schulz iterations.
+  f32 device inverse refined by Newton-Schulz iterations (dense matmuls).
 * Phase 1 / phase 2 (reference: phase_one.rs / phase_two.rs) share the same
   kernel with different cost vectors; artificials are physical identity
   columns appended to the tableau.

@@ -1,11 +1,12 @@
 """Double-float (two-f32) simplex carry kernels.
 
-The middle rung of the escalation ladder: f32 fast path -> **df32 carry** ->
-emulated f64.  The carry (B^-1, x_B, pi, obj — the state the reference
+A carry between the f32 fast path and f64: on backends without native f64
+it is the escalation ladder's middle rung (relp_tpu.backend), elsewhere a
+rung a user can pick (``SolverConfig(carry="df32")``).  The carry (B^-1, x_B, pi, obj — the state the reference
 maintains exactly in rationals, carry/mod.rs:46-66) is held as hi/lo f32
 pairs and updated with compensated arithmetic (relp_tpu/ops/df32), so both
-drift *and* matvec-accumulation error stay at ~2^-48 while every op runs on
-native f32 VPU/MXU paths.  Problem data is lowered in f64 and split hi/lo,
+drift *and* matvec-accumulation error stay at ~2^-48 while every op runs in
+native f32.  Problem data is lowered in f64 and split hi/lo,
 so data accuracy matches the carry.
 
 What stays plain f32: the full-width pricing/steepest-edge scans (noise is
@@ -89,19 +90,20 @@ class DfSimplexState(NamedTuple):
 
 def make_df_iteration(
     pricing: int, opt_tol, pivot_tol, degen_tol,
-    noisy_scan: bool = False, hi_scan: bool = False,
+    noise_eps: float = 0.0, hi_scan: bool = False,
 ):
     """One fused df32 simplex iteration (see kernels.make_iteration).
 
-    ``noisy_scan``/``hi_scan`` follow kernels.make_iteration: on
-    accelerators the f32 scans are single-pass bf16 (noise floor scaled
-    accordingly, chunk-entry iteration exempt — its d comes from a clean
-    matvec refresh); hi_scan is the polish mode (HIGHEST-precision scans).
+    ``noise_eps``/``hi_scan`` follow kernels.make_iteration: with
+    ``noise_eps > 0`` the default-precision f32 scans are inexact (noise
+    floor scaled accordingly, chunk-entry iteration exempt — its d comes
+    from a clean matvec refresh); hi_scan is the polish mode
+    (HIGHEST-precision scans).
     """
-    from relp_tpu.simplex.kernels import _HI, _NOISY_F32_EPS
+    from relp_tpu.simplex.kernels import _HI
 
     scan_precision = _HI if hi_scan else None
-    noisy = noisy_scan and not hi_scan
+    noisy = noise_eps > 0 and not hi_scan
 
     def iteration(state, A_scan, Ah, Al, ch, cl, c_scan, candidate_mask):
         M, N = A_scan.shape
@@ -109,7 +111,7 @@ def make_df_iteration(
         # --- pricing on the f32 scan copy; eligibility guarded against scan
         # noise exactly like the mixed-precision path ---
         d = state.d
-        noise = _NOISY_F32_EPS if noisy else float(jnp.finfo(jnp.float32).eps) * 8.0
+        noise = noise_eps if noisy else float(jnp.finfo(jnp.float32).eps) * 8.0
         threshold = opt_tol + noise * (1.0 + jnp.max(jnp.abs(state.pi)))
         if noisy:
             # Chunk-entry d comes from an exact matvec refresh: price it
@@ -237,7 +239,7 @@ def make_df_iteration(
     jax.jit,
     static_argnames=(
         "pricing", "chunk", "opt_tol", "pivot_tol", "degen_tol", "stop_at_zero",
-        "noisy_scan", "hi_scan",
+        "noise_eps", "hi_scan",
     ),
 )
 def df_run_chunk(
@@ -255,13 +257,13 @@ def df_run_chunk(
     pivot_tol: float,
     degen_tol: float,
     stop_at_zero: bool = False,
-    noisy_scan: bool = False,
+    noise_eps: float = 0.0,
     hi_scan: bool = False,
 ) -> DfSimplexState:
     """Run up to ``chunk`` df32 pivots on device without host round-trips."""
     iteration = make_df_iteration(
         pricing, opt_tol, pivot_tol, degen_tol,
-        noisy_scan=noisy_scan, hi_scan=hi_scan,
+        noise_eps=noise_eps, hi_scan=hi_scan,
     )
     c_scan = ch
     state = state._replace(

@@ -22,10 +22,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from relp_tpu.backend import backend_facts
 from relp_tpu.config import SolverConfig, default_config
 from relp_tpu.linalg.sparse import SparseVector
 from relp_tpu.providers.base import MatrixProvider
-from relp_tpu.simplex import kernels
 from relp_tpu.simplex.kernels import (
     PRICE_BLAND,
     PRICE_DANTZIG,
@@ -120,13 +120,14 @@ def _run_phase(
 
     pricing = _PRICING_CODES[cfg.pricing]
     mixed = A_scan is not A_full
-    # Accelerator f32 scans are single-pass bf16 (see kernels.noisy_f32_matmul):
-    # an in-chunk OPTIMAL may be a scan-noise freeze, so it is only final when
-    # reached with zero pivots in its chunk — i.e. decided by the clean
-    # (HIGHEST-precision) chunk-entry reduced costs.
+    # Default-precision f32 scans are inexact on some backends
+    # (relp_tpu.backend, scan_noise_eps): an in-chunk OPTIMAL may be a
+    # scan-noise freeze, so it is only final when reached with zero pivots
+    # in its chunk — i.e. decided by the clean (HIGHEST-precision)
+    # chunk-entry reduced costs.
     noisy = (
         not mixed
-        and kernels.noisy_f32_matmul()
+        and backend_facts().scan_noise_eps > 0
         and getattr(A_scan, "dtype", None) == jnp.float32
     )
     if pricing == PRICE_STEEPEST:
@@ -262,7 +263,7 @@ def _run_phase(
             and int(state.iteration) > it_before
         ):
             # Scan-noise freeze mid-chunk (the fast-path in-loop reduced
-            # costs are single-pass bf16 on accelerators): switch to polish
+            # costs are default-precision matmuls): switch to polish
             # chunks — same scan array at HIGHEST precision, i.e. exact
             # pricing — for the optimality tail.  An OPTIMAL reached with
             # zero pivots was decided by the clean chunk-entry d and is
@@ -475,17 +476,17 @@ def solve_relaxation(
     # f64 retries would run with f32-grade tolerances.
     tol_reset = getattr(cfg0, "requested_tolerances", {})
     if result.status is SolveStatus.NUMERICAL_ERROR:
-        # Escalation ladder: the double-float (two-f32) carry first — it
-        # fixes drift- and accumulation-induced singular bases (e.g. netlib
-        # CYCLE/GROW7) at native f32 speed — then emulated f64 with a
-        # tighter refactorization cadence, then the fully conservative
-        # configuration.
+        # Escalation ladder: where f64 is not native, the double-float
+        # (two-f32) carry first — it fixes drift- and accumulation-induced
+        # singular bases (e.g. netlib CYCLE/GROW7) at f32 speed — then f64
+        # with a tighter refactorization cadence, then the fully
+        # conservative configuration.
         ladder = []
         if (
             cfg0.dtype == "float32"
             and cfg0.carry == "native"
             and mesh is None
-            and _f64_is_emulated()
+            and not backend_facts().f64_native
         ):
             ladder.append(
                 dataclasses.replace(
@@ -542,7 +543,7 @@ def solve_relaxation(
             # Keep climbing while the verdict is uncertified: a rung can
             # return a *wrong but non-numerical* verdict (e.g. a df32
             # phase 1 stalling above phase1_tol reports INFEASIBLE on a
-            # feasible LP — netlib 25FV47 on TPU; the exact Farkas check
+            # feasible LP — netlib 25FV47; the exact Farkas check
             # correctly refuses to certify it), and stopping there ships
             # that verdict even though the next rung solves the LP.
             if result.status is not SolveStatus.NUMERICAL_ERROR and (
@@ -564,10 +565,14 @@ def solve_relaxation(
         and not result.stats.certified
     ):
         # f32 escalation: the fast path found something uncertifiable —
-        # re-solve with the double-float carry first (native f32 speed),
-        # then at emulated f64, warm-started from the best basis so far.
+        # re-solve at f64 (preceded by the double-float carry where f64 is
+        # not native), warm-started from the best basis so far.
         ladder = []
-        if cfg0.carry == "native" and mesh is None and _f64_is_emulated():
+        if (
+            cfg0.carry == "native"
+            and mesh is None
+            and not backend_facts().f64_native
+        ):
             ladder.append(
                 dataclasses.replace(cfg0, carry="df32", **tol_reset)
             )
@@ -653,15 +658,6 @@ def warm_dual_feasible(A, c, basis_full, nonbasic_mask, opt_tol):
     return dmin >= -tol, dmin, tol
 
 
-def _f64_is_emulated() -> bool:
-    """True on backends where f64 matmuls are emulated (TPU: ~40x slower),
-    making the double-float carry the cheaper escalation rung.  On CPU
-    native f64 wins, so the ladder goes straight there."""
-    import jax
-
-    return jax.default_backend() not in ("cpu",)
-
-
 def _use_host_sparse(provider: MatrixProvider, cfg: SolverConfig) -> bool:
     from relp_tpu.simplex.host_sparse import should_use_host_sparse
 
@@ -691,10 +687,11 @@ def _solve_relaxation_once(
         provider, dtype=dtype, pad_to=cfg.pad_to, equilibrate=cfg.prescale
     )
     A, A_scan, b, c1, c2, candidate_mask = _device_arrays(problem, cfg)
+    stats.device_shape = (problem.M, problem.N)
 
     def apply_mesh(A, A_scan, b, c1, c2, candidate_mask):
         # Column-shard the tableau over the mesh; GSPMD partitions the
-        # pricing scans and inserts the ICI argmax combine.
+        # pricing scans and inserts the cross-device argmax combine.
         from relp_tpu.parallel.sharded import shard_problem
 
         A, b, c1, mask = shard_problem(mesh, A, b, c1, candidate_mask)
@@ -835,6 +832,7 @@ def _solve_relaxation_once(
                     new_basis[new_i] = j
             problem.initial_basis = new_basis
             A, A_scan, b, c1, c2, candidate_mask = _device_arrays(problem, cfg)
+            stats.device_shape = (problem.M, problem.N)
             state = engine.init_state(problem, cfg)
 
         # Phase transition: real costs, fresh factorization

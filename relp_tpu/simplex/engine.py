@@ -5,11 +5,11 @@ The reference parameterizes its solver over the ``BasisInverse`` backend
 choice is a runtime engine object consumed by the driver:
 
 * :class:`DenseEngine` — explicit dense inverse with rank-1 product-form
-  updates (analog of BasisInverseRows; on TPU also the *fast* path: one
-  matvec FTRAN, fully fused iteration).
+  updates (analog of BasisInverseRows; on a device also the *fast* path:
+  one matvec FTRAN, fully fused iteration).
 * :class:`LUEngine` — LU factors + eta ring (analog of LUDecomposition +
-  EtaFile; triangular solves are latency-bound on TPU, so this is the
-  robustness/cross-check backend).
+  EtaFile; triangular solves are sequential and latency-bound on a device,
+  so this is the robustness/cross-check backend).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from relp_tpu.backend import backend_facts
 from relp_tpu.config import SolverConfig
 from relp_tpu.simplex import kernels
 from relp_tpu.simplex import lu as lu_mod
@@ -79,9 +80,8 @@ class DenseEngine:
         # inverse after a chunk of rank-1 updates has residual ~1e-3..1e-4,
         # inside Newton's quadratic basin, so two refresh steps (4 matmuls)
         # reach the dtype floor without jnp.linalg.inv — whose sequential
-        # triangular solves dominate big-bucket chunk exits (m=5120:
-        # netlib 80BAU3B spent 680 s of its 684 s wall in per-chunk-exit
-        # refactorization before this path).
+        # factorization steps dominated big-bucket chunk exits before this
+        # path.
         Binv, xB, pi, obj, residual = kernels.newton_refresh(
             state.Binv, A, b, c, state.basis, steps=2
         )
@@ -94,7 +94,7 @@ class DenseEngine:
         # Second opinion before the expensive fallbacks: the f32 max|BX-I|
         # measurement itself floors at ~sqrt(m)*eps*row-norms (1.2e-4 at
         # m=5120 for a PERFECT inverse), so at large m the gate above can
-        # never pass.  Re-measure with f64-emulated matvecs (O(m^2), ~us).
+        # never pass.  Re-measure with f64 matvecs (O(m^2)).
         health_r = self._carry_health(Binv, A, b, c, state.basis, xB, pi, cfg)
         if health_r is not None and health_r <= self._health_tol:
             _log.info(
@@ -137,9 +137,10 @@ class DenseEngine:
                 )
                 xB = jnp.where(xB > -cfg.feas_tol, jnp.maximum(xB, 0.0), xB)
                 return state._replace(Binv=Binv, xB=xB, pi=pi, obj=obj), eff
-            # The f32 MXU inverse + Newton refinement broke down on an
+            # The f32 device inverse + Newton refinement broke down on an
             # ill-conditioned basis; fall back to host LAPACK in f64
             # (handles condition numbers up to ~1e15).
+            stats.host_refactors += 1
             _log.info(
                 "refactor: device refactorize rejected (res %.3e, health "
                 "%s), host LAPACK fallback at m=%d", res, health_f,
@@ -175,7 +176,7 @@ class DenseEngine:
 
     @staticmethod
     def _carry_health(Binv, A, b, c, basis, xB, pi, cfg: SolverConfig):
-        """f64-emulated matvec health of a refreshed carry, or None when
+        """f64 matvec health of a refreshed carry, or None when
         unavailable (x64 disabled, or f64 carry already exact-measured)."""
         import jax
 
@@ -205,15 +206,6 @@ class DenseEngine:
         self, state, A_scan, A_full, c, candidate_mask, mode, cfg,
         stop_at_zero=False, hi_scan=False,
     ):
-        import jax
-
-        # The Pallas scan kernel needs lane-aligned tiles; fall back to the
-        # XLA path for odd shapes.  Interpret mode keeps CPU tests honest.
-        # hi_scan (the noisy-backend polish mode) needs HIGHEST-precision
-        # scans, which the Pallas scan kernel does not implement.
-        pallas = (
-            bool(cfg.pallas_scan) and A_scan.shape[1] % 128 == 0 and not hi_scan
-        )
         return kernels.run_chunk(
             state,
             A_scan,
@@ -226,12 +218,10 @@ class DenseEngine:
             pivot_tol=cfg.pivot_tol,
             degen_tol=cfg.feas_tol,
             stop_at_zero=stop_at_zero,
-            pallas_scan=pallas,
-            pallas_interpret=pallas and jax.default_backend() == "cpu",
             # Static jit arg: must be resolved OUTSIDE the jitted function
             # (a trace-time read would freeze the first call's value into
             # the shared jit cache).
-            noisy_scan=kernels.noisy_f32_matmul(),
+            noise_eps=backend_facts().scan_noise_eps,
             hi_scan=hi_scan,
         )
 
@@ -249,7 +239,7 @@ class DenseEngine:
             opt_tol=cfg.opt_tol,
             pivot_tol=cfg.pivot_tol,
             feas_tol=cfg.feas_tol,
-            noisy_scan=kernels.noisy_f32_matmul(),
+            noise_eps=backend_facts().scan_noise_eps,
         )
 
     def recompute_gamma(self, state, A_scan):
@@ -331,8 +321,8 @@ class LUEngine:
         stop_at_zero=False, hi_scan=False,
     ):
         # hi_scan is accepted for driver uniformity; the LU iteration
-        # recomputes d per pivot via an exact (M,)@(M,N) matvec, so its
-        # pricing is already clean on accelerators.
+        # recomputes d per pivot via an (M,)@(M,N) matvec, so its pricing
+        # is already clean.
         return lu_mod.lu_run_chunk(
             state,
             A_scan,
@@ -496,7 +486,7 @@ class DoubleFloatEngine:
             opt_tol=cfg.opt_tol,
             pivot_tol=cfg.pivot_tol,
             degen_tol=cfg.feas_tol,
-            noisy_scan=kernels.noisy_f32_matmul(),
+            noise_eps=backend_facts().scan_noise_eps,
             hi_scan=hi_scan,
             stop_at_zero=stop_at_zero,
         )
@@ -520,8 +510,8 @@ class DoubleFloatEngine:
 
 
 def make_engine(cfg: SolverConfig):
-    # Persist compiled executables across processes: remote TPU compiles
-    # cost 30-90 s per signature and dominated round-3 netlib wall times.
+    # Persist compiled executables across processes: compile time is part
+    # of every cold solve's end-to-end time.
     from relp_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()

@@ -1,7 +1,7 @@
 """Sparse host backend — the CPU fallback for very large, very sparse LPs.
 
-The device path lowers the provider to a dense padded tableau: ideal for the
-MXU, but on the CPU backend an 80BAU3B-class instance (m ~ 5000, n ~ 14000,
+The device path lowers the provider to a dense padded tableau: ideal for an
+accelerator's dense products, but on the CPU backend an 80BAU3B-class instance (m ~ 5000, n ~ 14000,
 density 0.04%) means a ~800 MB dense tableau, O(m^3) dense refactorizations
 and an 800 MB sweep per pricing scan — the one reference-suite problem that
 could not finish on CPU.  This module is a sparse revised simplex on the
@@ -686,10 +686,11 @@ def should_use_host_sparse(provider: MatrixProvider, cfg: SolverConfig) -> bool:
     """Auto-routing heuristic: host-sparse wins on the CPU backend when the
     dense lowering would be both huge (> ~2.5e7 padded cells, i.e. hundreds
     of MB and O(m^3) dense refactorizations) and nearly empty (< 2% dense).
-    On TPU the dense MXU path stays preferable."""
-    import jax
+    Backends whose facts say so (relp_tpu.backend, host_sparse_auto) keep
+    the dense device path."""
+    from relp_tpu.backend import backend_facts
 
-    if jax.default_backend() != "cpu":
+    if not backend_facts().host_sparse_auto:
         return False
     m = provider.nr_rows()
     n = provider.nr_columns()

@@ -1,6 +1,6 @@
 """Jitted simplex kernels.
 
-The hot loop (reference call stack SURVEY.md 3.3) as fused MXU work:
+The hot loop (reference call stack SURVEY.md 3.3) as fused dense device work:
 
 * pricing: ``d = c - pi A`` is one (M)x(M,N) matvec; Dantzig picks
   ``argmin d``, steepest-edge picks ``argmax d^2/gamma``
@@ -17,10 +17,10 @@ The hot loop (reference call stack SURVEY.md 3.3) as fused MXU work:
   ``gamma_j' = max(gamma_j - 2 abar_j (v a_j) + abar_j^2 gamma_q,
   1 + abar_j^2)``.
 
-Refactorization: gather B = A[:, basis], invert in f32 on the MXU, then
-Newton-Schulz iterations in the working dtype (quadratic convergence to
-~1e-13) — replacing the reference's sparse LU refactorization
-(decomposition/mod.rs) with an MXU-native scheme.
+Refactorization: gather B = A[:, basis], invert in f32, then Newton-Schulz
+iterations in the working dtype (quadratic convergence to ~1e-13) —
+replacing the reference's sparse LU refactorization (decomposition/mod.rs)
+with a scheme made of dense matrix products.
 """
 
 from __future__ import annotations
@@ -47,27 +47,19 @@ PRICE_BLAND = 2  # first-profitable entering + lowest-index leaving
 PRICE_FIRST = 3  # first profitable (reference: FirstProfitable)
 PRICE_FIRST_MEMORY = 4  # round-robin resume (reference: FirstProfitableWithMemory)
 
-# Accelerator f32 matmuls are SINGLE-PASS bf16 by default (measured ~2.6e-3
-# max relative error on v5e for both the batched einsum and the stacked
-# (3,M)@(M,N) scan — scripts/probe_batched_precision.py), so "same-precision"
-# f32 scans still carry bf16-grade noise there: phantom negative reduced
-# costs above opt_tol that keep pricing from ever declaring OPTIMAL.  On
-# such backends the iteration treats the scan like a low-precision one
-# (noise-scaled eligibility floor + working-precision recheck of the picked
-# column) and the drivers re-verify OPTIMAL at a clean chunk boundary.
-_NOISY_F32_EPS = 4e-3  # single-pass-bf16 error bound (measured 2.6e-3 + margin)
+# Default-precision f32 matmuls may be inexact on an accelerator (TF32 on
+# the GPU; see relp_tpu.backend, scan_noise_eps), so "same-precision" f32
+# scans can carry noise: phantom negative reduced costs above opt_tol that
+# keep pricing from ever declaring OPTIMAL.  With ``noise_eps > 0`` the
+# iteration treats the scan like a low-precision one (noise-scaled
+# eligibility floor + working-precision recheck of the picked column) and
+# the drivers re-verify OPTIMAL at a clean chunk boundary.
 
 # State-carrying products (FTRAN, refactorization, residual measurement)
-# run at HIGHEST precision: multi-pass true f32 on the MXU.  Wide pricing /
-# Goldfarb scans deliberately stay on the fast single-pass path — noise
-# there only affects pivot choice, which the guards above absorb.
+# run at HIGHEST precision: true f32.  Wide pricing / Goldfarb scans
+# deliberately stay at default precision — noise there only affects pivot
+# choice, which the guards above absorb.
 _HI = jax.lax.Precision.HIGHEST
-
-
-def noisy_f32_matmul() -> bool:
-    """True when the default backend's f32 matmuls are single-pass bf16
-    (any accelerator; CPU matmuls are true IEEE f32)."""
-    return jax.default_backend() != "cpu"
 
 
 def _select_entering(d, gamma, eligible, pricing: int, N: int, start=None):
@@ -137,37 +129,38 @@ def make_iteration(
     opt_tol: float,
     pivot_tol: float,
     degen_tol: float,
-    pallas_scan: bool = False,
-    pallas_interpret: bool = False,
-    noisy_scan: bool = False,
+    noise_eps: float = 0.0,
     hi_scan: bool = False,
 ):
     """Build one fused simplex iteration.
 
     ``A_scan`` is the tableau copy used for the full-width pricing and
-    steepest-edge scans (may be float32 — the f64 matvec is emulated and
-    HBM-bound on TPU, so scanning in f32 is ~4x less traffic and uses native
-    VPU/MXU paths); ``A_full`` is the working-precision copy used for the
-    FTRAN gather.  Mixed-precision termination is polished by full-precision
-    chunks in the driver and ultimately by the exact certifier.
+    steepest-edge scans (may be float32 under an f64 carry: the scans are
+    memory-bound, so an f32 copy halves their traffic); ``A_full`` is the
+    working-precision copy used for the FTRAN gather.  Mixed-precision
+    termination is polished by full-precision chunks in the driver and
+    ultimately by the exact certifier.
+
+    ``noise_eps`` is the backend's default-precision f32 matmul error
+    (relp_tpu.backend); 0.0 means the scans are exact f32.
 
     ``hi_scan`` runs the wide pricing/Goldfarb scans at HIGHEST precision
-    (multi-pass true f32) — the polish mode for noisy backends: 3-6x the
-    scan cost but exact pricing, so the optimality tail (candidates below
-    the fast path's noise floor) terminates instead of thrashing at one
-    pivot per clean chunk entry.
+    (true f32) — the polish mode for noisy backends: slower scans but exact
+    pricing, so the optimality tail (candidates below the fast path's noise
+    floor) terminates instead of thrashing at one pivot per clean chunk
+    entry.
     """
 
     def iteration(state: SimplexState, A_scan, A_full, c, c_scan, candidate_mask) -> SimplexState:
         M, N = A_scan.shape
         scan_dtype = A_scan.dtype
         low_precision_scan = scan_dtype != A_full.dtype
-        # "Same-precision" f32 scans are still bf16-noisy on accelerators
-        # (single-pass MXU matmuls; see noisy_f32_matmul) — treat them like
-        # low-precision scans: noise-scaled floor + recheck of the pick.
+        # "Same-precision" f32 scans are still noisy on backends whose
+        # default-precision matmuls are inexact (noise_eps > 0) — treat them
+        # like low-precision scans: noise-scaled floor + recheck of the pick.
         # hi_scan mode computes the scans at HIGHEST, so they are exact.
         noisy = (
-            noisy_scan
+            noise_eps > 0
             and not hi_scan
             and not low_precision_scan
             and scan_dtype == jnp.float32
@@ -183,7 +176,7 @@ def make_iteration(
             # 1e-9 threshold would fabricate candidates forever on
             # large-scale problems.  Scale the eligibility floor by |pi|.
             noise = (
-                _NOISY_F32_EPS if noisy else float(jnp.finfo(scan_dtype).eps) * 8.0
+                noise_eps if noisy else float(jnp.finfo(scan_dtype).eps) * 8.0
             )
             threshold = opt_tol + noise * (1.0 + jnp.max(jnp.abs(state.pi))).astype(
                 scan_dtype
@@ -209,9 +202,8 @@ def make_iteration(
         q = q.astype(jnp.int32)
 
         # --- FTRAN (working precision; HIGHEST so the vmapped batched form
-        # — a (B,M,M)x(B,M) matmul on accelerators — stays true f32: w feeds
-        # the carried inverse/xB, where single-pass bf16 noise compounds
-        # per pivot) ---
+        # — a (B,M,M)x(B,M) matmul — stays true f32: w feeds the carried
+        # inverse/xB, where default-precision noise compounds per pivot) ---
         a_q = A_full[:, q]
         w = jnp.matmul(state.Binv, a_q, precision=_HI)
 
@@ -265,7 +257,7 @@ def make_iteration(
 
         # --- fused full-width scans: the next iteration's pricing vector
         # plus (for steepest edge) the two Goldfarb vectors, all in ONE pass
-        # over A_scan.  Big tableaus are HBM-bound, so one stacked (K,M)x(M,N)
+        # over A_scan.  Big tableaus are memory-bound, so one stacked (K,M)x(M,N)
         # matmul instead of three row-vector scans is ~3x less traffic. ---
         if pricing == PRICE_STEEPEST:
             gamma_q_val = (1.0 + w @ w).astype(scan_dtype)
@@ -273,21 +265,12 @@ def make_iteration(
             P = jnp.stack(
                 [pi_new.astype(scan_dtype), v, Binv_new[r].astype(scan_dtype)]
             )
-            if pallas_scan:
-                from relp_tpu.ops import fused_price_scan
-
-                d_next, gamma_new = fused_price_scan(
-                    P, A_scan, c_scan, gamma, gamma_q_val,
-                    interpret=pallas_interpret,
-                )
-                abar = None
-            else:
-                S = jnp.matmul(P, A_scan, precision=scan_precision)
-                d_next = c_scan - S[0]
-                inner = S[1]
-                abar = S[2]  # pivot row of the updated tableau
-                gamma_new = gamma - 2.0 * abar * inner + (abar * abar) * gamma_q_val
-                gamma_new = jnp.maximum(gamma_new, 1.0 + abar * abar)
+            S = jnp.matmul(P, A_scan, precision=scan_precision)
+            d_next = c_scan - S[0]
+            inner = S[1]
+            abar = S[2]  # pivot row of the updated tableau
+            gamma_new = gamma - 2.0 * abar * inner + (abar * abar) * gamma_q_val
+            gamma_new = jnp.maximum(gamma_new, 1.0 + abar * abar)
             gamma_new = gamma_new.at[leaving].set(
                 jnp.maximum(
                     gamma_q_val / (safe_w_r * safe_w_r).astype(scan_dtype), 1.0
@@ -328,7 +311,7 @@ def make_iteration(
     jax.jit,
     static_argnames=(
         "pricing", "chunk", "opt_tol", "pivot_tol", "degen_tol", "stop_at_zero",
-        "pallas_scan", "pallas_interpret", "noisy_scan", "hi_scan",
+        "noise_eps", "hi_scan",
     ),
 )
 def run_chunk(
@@ -344,9 +327,7 @@ def run_chunk(
     pivot_tol: float,
     degen_tol: float,
     stop_at_zero: bool = False,
-    pallas_scan: bool = False,
-    pallas_interpret: bool = False,
-    noisy_scan: bool = False,
+    noise_eps: float = 0.0,
     hi_scan: bool = False,
 ) -> SimplexState:
     """Run up to ``chunk`` pivots on device without host round-trips.
@@ -359,15 +340,14 @@ def run_chunk(
     """
     iteration = make_iteration(
         pricing, opt_tol, pivot_tol, degen_tol,
-        pallas_scan=pallas_scan, pallas_interpret=pallas_interpret,
-        noisy_scan=noisy_scan, hi_scan=hi_scan,
+        noise_eps=noise_eps, hi_scan=hi_scan,
     )
     c_scan = c.astype(A_scan.dtype)
     # Refresh the carried reduced costs at chunk entry: pi may have changed
     # outside the loop (refactorization, phase switch, polish scan switch).
     # HIGHEST: under vmap this row-vector product becomes a batched matmul,
-    # which would otherwise be single-pass bf16 on accelerators — a noisy
-    # chunk-entry d would fabricate candidates and block OPTIMAL forever.
+    # which would otherwise run at default precision — a noisy chunk-entry
+    # d would fabricate candidates and block OPTIMAL forever.
     state = state._replace(
         inner=jnp.zeros((), jnp.int32),
         d=c_scan
@@ -387,7 +367,7 @@ def run_chunk(
 
 
 def make_dual_iteration(
-    opt_tol: float, pivot_tol: float, feas_tol: float, noisy_scan: bool = False
+    opt_tol: float, pivot_tol: float, feas_tol: float, noise_eps: float = 0.0
 ):
     """One fused *dual* simplex iteration (new capability — the reference
     has no dual simplex; its warm-start story is IM::from_basis,
@@ -417,12 +397,12 @@ def make_dual_iteration(
         rho = state.Binv[r]
         alpha = rho.astype(scan_dtype) @ A_scan
         d = state.d
-        if noisy_scan and scan_dtype == jnp.float32:
-            # Accelerator fast-path scan: alpha carries ~bf16 noise scaled
-            # by |rho| |a_j|; keep phantom entries out of the eligibility
-            # set, else the pick fails the working-precision pivot gate
-            # below and the LP freezes as SINGULAR.
-            alpha_floor = pivot_tol + _NOISY_F32_EPS * (
+        if noise_eps > 0 and scan_dtype == jnp.float32:
+            # Default-precision scan on a noisy backend: alpha carries noise
+            # scaled by |rho| |a_j|; keep phantom entries out of the
+            # eligibility set, else the pick fails the working-precision
+            # pivot gate below and the LP freezes as SINGULAR.
+            alpha_floor = pivot_tol + noise_eps * (
                 1.0 + jnp.max(jnp.abs(rho))
             ).astype(scan_dtype)
         else:
@@ -442,7 +422,7 @@ def make_dual_iteration(
         q = jnp.argmax(jnp.where(near, -alpha, -big)).astype(jnp.int32)
 
         # --- FTRAN at working precision (HIGHEST: the vmapped batched form
-        # is a matmul, single-pass bf16 by default on accelerators) ---
+        # is a matmul, which would otherwise run at default precision) ---
         a_q = A_full[:, q]
         w = jnp.matmul(state.Binv, a_q, precision=_HI)
         w_r = w[r]
@@ -501,7 +481,7 @@ def make_dual_iteration(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("chunk", "opt_tol", "pivot_tol", "feas_tol", "noisy_scan"),
+    static_argnames=("chunk", "opt_tol", "pivot_tol", "feas_tol", "noise_eps"),
 )
 def dual_run_chunk(
     state: SimplexState,
@@ -514,11 +494,11 @@ def dual_run_chunk(
     opt_tol: float,
     pivot_tol: float,
     feas_tol: float,
-    noisy_scan: bool = False,
+    noise_eps: float = 0.0,
 ) -> SimplexState:
     """Run up to ``chunk`` dual pivots on device without host round-trips."""
     iteration = make_dual_iteration(
-        opt_tol, pivot_tol, feas_tol, noisy_scan=noisy_scan
+        opt_tol, pivot_tol, feas_tol, noise_eps=noise_eps
     )
     c_scan = c.astype(A_scan.dtype)
     state = state._replace(
@@ -536,20 +516,18 @@ def dual_run_chunk(
     return jax.lax.while_loop(cond, body, state)
 
 
-# Refactorization / refresh matmuls run at HIGHEST precision (_HI): TPU f32
-# matmuls default to SINGLE-PASS bf16 inputs (~2e-3 relative — measured on
-# v5e, scripts/probe_dot_precision.py), which caps Newton-Schulz at bf16
-# accuracy and makes the drift-repair residual a lie (it then trips the
-# >1e-4 breakdown gates on perfectly good bases).  These run once per chunk
-# (amortized over ~150 pivots), so the multi-pass cost is noise.
+# Refactorization / refresh matmuls run at HIGHEST precision (_HI):
+# default-precision f32 matmuls may be inexact on an accelerator, which would
+# cap Newton-Schulz at that accuracy and make the drift-repair residual a lie
+# (it then trips the >1e-4 breakdown gates on perfectly good bases).  These
+# run once per chunk, so the cost of true f32 is amortized over its pivots.
 
 
 @functools.partial(jax.jit, static_argnames=("newton_steps",))
 def refactorize(A, b, c, basis, *, newton_steps: int = 3):
     """Recompute the basis inverse from scratch.
 
-    MXU-native: f32 inverse + Newton-Schulz refinement in the working dtype
-    (replaces the reference's sparse LU refactorization,
+    f32 inverse + Newton-Schulz refinement in the working dtype (replaces the reference's sparse LU refactorization,
     carry/mod.rs:584-591 + decomposition/mod.rs).
 
     Returns (Binv, xB, pi, obj, residual) — residual is
@@ -563,8 +541,8 @@ def refactorize(A, b, c, basis, *, newton_steps: int = 3):
         X = jnp.matmul(X, 2.0 * eye - jnp.matmul(B, X, precision=_HI), precision=_HI)
     residual = jnp.max(jnp.abs(jnp.matmul(B, X, precision=_HI) - eye))
     # xB/pi are the basis-exact values feasibility gates and extraction
-    # trust; under vmap these matvecs become batched matmuls (single-pass
-    # bf16 on accelerators by default).
+    # trust; under vmap these matvecs become batched matmuls (default
+    # precision would make them inexact on an accelerator).
     xB = jnp.matmul(X, b, precision=_HI)
     cB = c[basis]
     pi = jnp.matmul(cB, X, precision=_HI)
@@ -579,10 +557,8 @@ def newton_refresh(Binv, A, b, c, basis, *, steps: int = 2):
 
     The product-form inverse after a chunk of rank-1 updates has residual
     ~1e-3..1e-4 (f32), an excellent Newton starting point — two steps reach
-    the f32 floor.  Pure batched matmuls (MXU-friendly), unlike
-    ``jnp.linalg.inv`` whose triangular-solve loops are pathologically slow
-    for many small batched matrices on TPU (measured: seconds per call at
-    B=256, M=128 — the bottleneck of the scenario batch driver).
+    the f32 floor.  Pure (batched) matmuls, unlike ``jnp.linalg.inv``,
+    whose pivoted factorization is a chain of sequential small steps.
 
     Returns (Binv, xB, pi, obj, residual) like ``refactorize``; a diverged
     X (singular drift) keeps a large residual, which callers detect.
@@ -603,15 +579,14 @@ def newton_refresh(Binv, A, b, c, basis, *, steps: int = 2):
 
 @jax.jit
 def carry_health(Binv, A, b, c, basis, xB, pi):
-    """Accurate carry-health residual via f64-emulated device matvecs.
+    """Accurate carry-health residual via f64 device matvecs.
 
     The f32 HIGHEST max|B X - I| measurement floors at ~sqrt(m)*eps*row
     norms — 1.2e-4 at m=5120 on netlib 80BAU3B, above every honest gate
     even for a PERFECT inverse, so the refresh gate can never pass and
-    every chunk exit pays the ~20 s host-LAPACK fallback (the r4 684 s
-    regression, netlib_tpu_r4_pass2).  Matvecs are only O(m^2): emulated
-    f64 costs microseconds where the (M,M,M) f64 matmul would cost
-    seconds.  Health = max of three RELATIVE residuals:
+    every chunk exit pays the host-LAPACK fallback.  Matvecs are only
+    O(m^2), where an (M,M,M) f64 matmul would be O(m^3).  Health = max of
+    three RELATIVE residuals:
 
       feas  = max|B xB - b|    / (1 + max|b|)     — (BX-I) probed along b
       dual  = max|pi B - cB|   / (1 + max|cB|)    — row-side probe along cB

@@ -1,7 +1,7 @@
 """Lowering a MatrixProvider to the device tableau.
 
-TPU-specific design: the provider's virtual standard-form LP becomes dense
-tiled arrays
+Device design: the provider's virtual standard-form LP becomes dense padded
+arrays
 
 * ``A``: (M, N) with columns [ real provider columns | artificial identity
   columns, one per row | zero padding ].  The artificial block realizes the

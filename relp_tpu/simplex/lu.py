@@ -1,11 +1,11 @@
 """LU + eta-file basis inverse backend.
 
-TPU re-architecture of the reference's production backend
+Dense re-architecture of the reference's production backend
 (``LUDecomposition`` + eta files + permutations, SURVEY.md comps 18-21):
 
-* Refactorization: pivoted dense LU of the basis on the MXU
+* Refactorization: pivoted dense LU of the basis on the device
   (f32 ``lu_factor``; the reference runs sparse Markowitz elimination,
-  decomposition/mod.rs:27-143 — dense-blocked is the TPU-native choice).
+  decomposition/mod.rs:27-143 — dense-blocked suits a device).
 * FTRAN/BTRAN: triangular solves plus one step of f64 iterative refinement
   (replacing exact rational solves; reference: lower_upper/mod.rs:180-237).
 * Updates: a fixed-capacity product-form eta ring — each pivot appends
@@ -15,8 +15,8 @@ TPU re-architecture of the reference's production backend
   (lower_upper/mod.rs:94-178).  The ring capacity plays the role of the
   "refactor after 30 updates" rule (should_refactor, :249-252).
 
-Trade-off (documented honestly): on TPU, single-vector triangular solves are
-latency-bound, so this backend is slower per iteration than the dense
+Trade-off (documented honestly): on a device, single-vector triangular
+solves are sequential and latency-bound, so this backend is slower per iteration than the dense
 product-form inverse (kernels.py) but has better numerical behavior between
 refactorizations; it also serves as the cross-check backend, playing the
 role the reference assigns to running both BasisInverseRows and

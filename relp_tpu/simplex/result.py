@@ -32,6 +32,8 @@ class SolveStats:
     # (0 unless the dual warm-restart path ran).
     dual_iterations: int = 0
     refactorizations: int = 0
+    # Refactorizations the device rejected and host LAPACK (f64) redid.
+    host_refactors: int = 0
     chunks: int = 0
     exact_cleanup_pivots: int = 0
     certified: bool = False
@@ -46,6 +48,9 @@ class SolveStats:
     # Escalation rungs the driver retried with, in order (e.g. "df32",
     # "float64") — no silent precision switches.
     escalations: List[str] = field(default_factory=list)
+    # Padded (M, N) of the device tableau of the last rung (None when no
+    # device lowering ran).
+    device_shape: Optional[Tuple[int, int]] = None
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Device-resident simplex state.
 
-The TPU analog of the reference's ``Carry`` inverse maintainer
+The device analog of the reference's ``Carry`` inverse maintainer
 (carry/mod.rs:46-66): basis inverse, basic solution b-bar, duals pi, objective
 and basis bookkeeping — all static-shape arrays forming one jittable pytree.
 """

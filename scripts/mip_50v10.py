@@ -1,7 +1,7 @@
-"""miplib 50v-10 exact branch & bound campaign (VERDICT r2 item 6).
+"""miplib 50v-10 exact branch & bound campaign.
 
 The reference stops at the root relaxation (2879.065687,
-/root/reference/tests/miplib/mod.rs:48-72); here the full exact B&B runs
+the reference's tests/miplib/mod.rs:48-72); here the full exact B&B runs
 with GMI + cover cuts, strong branching, rounding dive, RINS, and wide
 best-bound waves, reporting the rigorous exact interval.
 
@@ -22,6 +22,12 @@ if os.environ.get("RELP_STACK_DUMP"):
     )
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+# A checkout of the reference (vandenheuvel/relp): RELP_REFERENCE_ROOT, else
+# the git-ignored reference/ inside this checkout.
+REFERENCE_ROOT = os.environ.get(
+    "RELP_REFERENCE_ROOT", os.path.join(os.path.dirname(__file__), "..", "reference")
+)
 
 
 def main():
@@ -49,7 +55,7 @@ def main():
     print(f"device: {jax.devices()[0]}", flush=True)
     t0 = time.time()
     gf = load_general_form(
-        "/root/reference/tests/miplib/problem_files/50v-10.mps"
+        f"{REFERENCE_ROOT}/tests/miplib/problem_files/50v-10.mps"
     )
     cfg = SolverConfig(pad_to=128, chunk_size=150, refactor_period=150)
     res = solve_mip(

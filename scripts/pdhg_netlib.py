@@ -1,9 +1,9 @@
-"""PDHG at netlib scale ON THE TPU (VERDICT r2 item 7).
+"""PDHG at netlib scale on the device.
 
 Runs the first-order path (restarted reflected-Halpern PDHG -> crossover ->
 exact certification) on a large netlib instance and compares wall clock
 with the cold exact simplex on the same chip.  The point of the first-order
-method is scale: its inner loop is two MXU matvecs + projections with no
+method is scale: its inner loop is two dense matvecs + projections with no
 pivot sequencing, so iterations/s stays high where the simplex path's
 per-pivot full-tableau stream becomes the bottleneck.
 
@@ -25,6 +25,12 @@ if os.environ.get("RELP_STACK_DUMP"):
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
+
+# A checkout of the reference (vandenheuvel/relp): RELP_REFERENCE_ROOT, else
+# the git-ignored reference/ inside this checkout.
+REFERENCE_ROOT = os.environ.get(
+    "RELP_REFERENCE_ROOT", os.path.join(os.path.dirname(__file__), "..", "reference")
+)
 
 
 def main():
@@ -54,7 +60,7 @@ def main():
     print(f"device: {jax.devices()[0]}", flush=True)
     t0 = time.time()
     gf = load_general_form(
-        f"/root/reference/tests/netlib/problem_files/{args.problem}.SIF"
+        f"{REFERENCE_ROOT}/tests/netlib/problem_files/{args.problem}.SIF"
     )
     gf.presolve()
     counts = gf.standardize()

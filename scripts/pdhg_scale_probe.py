@@ -1,11 +1,11 @@
-"""First-order (PDHG) throughput at scale on the TPU.
+"""First-order (PDHG) throughput at scale on the device.
 
-The PDHG inner loop is two MXU matvecs + a box projection per iteration —
+The PDHG inner loop is two dense matvecs + a box projection per iteration —
 no pivot sequencing, no basis, nothing host-bound — so it is the method
 whose throughput actually scales with problem size on this hardware.
 This probe measures steady-state PDHG iterations/s at growing (m, n) on a
-synthetic feasible box LP, with the dispatch-count and cache effects
-handled the way bench.py does (chunk differencing, per-process entropy).
+synthetic feasible box LP by chunk differencing (as bench.py does), timed
+around ``block_until_ready``.
 
 Usage: python scripts/pdhg_scale_probe.py [--sizes 1024x4096 2048x8192 ...]
 """
@@ -49,7 +49,6 @@ def main():
     )
 
     print(f"device: {jax.devices()[0]}", flush=True)
-    entropy = float(np.random.default_rng().uniform(0.5, 1.5))
 
     for size in args.sizes:
         m, n = (int(v) for v in size.split("x"))
@@ -63,25 +62,23 @@ def main():
         y = jnp.zeros(m, jnp.float32)
         chunk_fn = _pdhg_chunk_jitted()
 
-        def run(chunk, rep):
-            xs = x + jnp.asarray(entropy * 1e-9 * (rep + 1), jnp.float32)
-            t0 = time.time()
-            out = chunk_fn(
-                xs, y, xs, y, 0.0, 1e-3, 1e-3, A, b, c, u, chunk=chunk
+        def run(chunk):
+            t0 = time.perf_counter()
+            jax.block_until_ready(
+                chunk_fn(x, y, x, y, 0.0, 1e-3, 1e-3, A, b, c, u, chunk=chunk)
             )
-            float(out[0][0])  # force
-            return time.time() - t0
+            return time.perf_counter() - t0
 
         for chunk in (20, 400):
-            run(chunk, -1)  # compile
+            run(chunk)  # compile
         ests = []
-        for rep in range(args.reps):
-            d_s = run(20, rep)
-            d_b = run(400, rep)
+        for _ in range(args.reps):
+            d_s = run(20)
+            d_b = run(400)
             if d_b > d_s:
                 ests.append((d_b - d_s) / 380.0)
         if not ests:
-            print(f"{size}: contention, no estimate", flush=True)
+            print(f"{size}: no positive difference, no estimate", flush=True)
             continue
         per_iter = float(np.median(ests))
         flops = 2 * 2 * m * n  # two matvecs

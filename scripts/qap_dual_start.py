@@ -2,7 +2,7 @@
 
 QAP12/QAP15 pin every float phase-1 walk to a flat 200k-pivot degenerate
 plateau (all-equality rows, b nonzero on only the 24/30 assignment rows —
-see docs/ROADMAP.md for the four recorded negative results).  But their
+see ROADMAP.md for the four recorded negative results).  But their
 costs are all >= 0, so the *dual* geometry is benign:
 
   basis of signed artificial columns  s_i * e_i  (cost 0,
@@ -33,6 +33,12 @@ from fractions import Fraction
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
+
+# A checkout of the reference (vandenheuvel/relp): RELP_REFERENCE_ROOT, else
+# the git-ignored reference/ inside this checkout.
+REFERENCE_ROOT = os.environ.get(
+    "RELP_REFERENCE_ROOT", os.path.join(os.path.dirname(__file__), "..", "reference")
+)
 
 
 class DualStartProvider:
@@ -94,7 +100,7 @@ def main():
     expected, tol = NETLIB_EXTRA.get(args.problem, (None, None))
     t0 = time.time()
     gf = load_general_form(
-        f"/root/reference/tests/netlib/problem_files/{args.problem}.SIF"
+        f"{REFERENCE_ROOT}/tests/netlib/problem_files/{args.problem}.SIF"
     )
     gf.presolve()
     counts = gf.standardize()

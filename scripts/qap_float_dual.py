@@ -1,7 +1,7 @@
 """Hybrid float-dual + exact finish for the QAP plateau holdouts.
 
 The QAP12/QAP15 LP relaxations defeat primal phase 1 (flat 200k-pivot
-degenerate plateau, four recorded negatives in docs/ROADMAP.md) and a pure
+degenerate plateau, four recorded negatives in ROADMAP.md) and a pure
 exact dual walk is sound but slow (QAP8 needs ~12k exact pivots at
 ~0.2 s each).  The scalable recipe is three stages:
 
@@ -30,6 +30,12 @@ from fractions import Fraction
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
+
+# A checkout of the reference (vandenheuvel/relp): RELP_REFERENCE_ROOT, else
+# the git-ignored reference/ inside this checkout.
+REFERENCE_ROOT = os.environ.get(
+    "RELP_REFERENCE_ROOT", os.path.join(os.path.dirname(__file__), "..", "reference")
+)
 
 import numpy as np
 
@@ -71,7 +77,7 @@ def main():
     on_cpu = jax.default_backend() == "cpu"
     t0 = time.time()
     gf = load_general_form(
-        f"/root/reference/tests/netlib/problem_files/{args.problem}.SIF"
+        f"{REFERENCE_ROOT}/tests/netlib/problem_files/{args.problem}.SIF"
     )
     gf.presolve()
     counts = gf.standardize()

@@ -3,7 +3,7 @@
 Values and tolerances exactly as the reference's tests/netlib/test.rs, which
 sources them from Gurobi, Coin CLP 1.17.6, GLPK 4.65, and Koch's "The final
 Netlib-LP results".  ``ignored`` mirrors the reference's #[ignore] markers —
-the de-facto performance frontier of exact single-core RELP that the TPU
+the de-facto performance frontier of exact single-core RELP that the device
 build aims to clear.
 """
 

@@ -9,16 +9,18 @@ import pytest
 from relp_tpu.__main__ import main
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
-NETLIB = "/root/reference/tests/netlib/problem_files"
+# min -x - y s.t. x + 2y <= 4, 3x + y <= 9: optimum -17/5 at (14/5, 3/5).
+TWOVAR = os.path.join(DATA, "twovar.mps")
 
 
 def test_cli_lp_json(capsys):
-    rc = main(["solve", "--json", os.path.join(NETLIB, "AFIRO.SIF")])
+    rc = main(["solve", "--json", "--values", TWOVAR])
     out = json.loads(capsys.readouterr().out)
     assert rc == 0
     assert out["status"] == "finite_optimum"
-    assert out["objective"] == "-406659/875"
+    assert out["objective"] == "-17/5"
     assert out["certified"] is True
+    assert out["values"] == {"X": "14/5", "Y": "3/5"}
 
 
 def test_cli_mip_json(capsys):
@@ -57,11 +59,9 @@ def test_cli_mip_gap_and_limits(capsys):
 
 
 def test_cli_first_order_json(capsys):
-    rc = main(
-        ["solve", "--first-order", "--json", os.path.join(NETLIB, "AFIRO.SIF")]
-    )
+    rc = main(["solve", "--first-order", "--json", TWOVAR])
     out = json.loads(capsys.readouterr().out)
     assert rc == 0
     assert out["status"] == "finite_optimum"
-    assert out["objective"] == "-406659/875"
+    assert out["objective"] == "-17/5"
     assert out["certified"] is True

@@ -143,36 +143,31 @@ def test_df32_rescues_grow7_without_f64():
     assert abs(float(solution.objective_value) + 47787811.8147115) < 1e-1
 
 
-def test_escalation_ladder_prefers_df32_when_f64_emulated(monkeypatch):
-    """When f64 is emulated (TPU), an uncertifiable f32 solve must retry
-    via the df32 rung before any f64 attempt, and record the rungs."""
+def _ladder_run(monkeypatch, f64_native: bool):
+    """Force the first (f32) attempt to report NUMERICAL_ERROR so the
+    escalation ladder runs on a small facility location LP; return the
+    rungs tried (in order) and the final result."""
+    import dataclasses
+
+    from relp_tpu import backend
+    from relp_tpu.config import SolverConfig
+    from relp_tpu.data import facility
     from relp_tpu.simplex import driver as driver_mod
-
-    calls = []
-    real_once = driver_mod._solve_relaxation_once
-
-    def recording_once(provider, config=None, warm_start_basis=None, mesh=None):
-        calls.append(
-            "df32" if config.carry == "df32" else config.dtype
-        )
-        return real_once(provider, config, warm_start_basis, mesh)
-
-    monkeypatch.setattr(driver_mod, "_f64_is_emulated", lambda: True)
-    monkeypatch.setattr(driver_mod, "_solve_relaxation_once", recording_once)
-
-    # An LP the f32 fast path solves but cannot certify exactly enough is
-    # hard to fabricate deterministically; instead force the first attempt
-    # to report NUMERICAL_ERROR so the ladder runs.
     from relp_tpu.simplex.result import OptimizationResult, SolveStats
     from relp_tpu.simplex.result import SolveStatus
 
-    first = {"done": False}
+    monkeypatch.setitem(
+        backend._FACTS,
+        "cpu",
+        dataclasses.replace(backend._FACTS["cpu"], f64_native=f64_native),
+    )
+    calls = []
+    real_once = driver_mod._solve_relaxation_once
 
     def failing_then_real(provider, config=None, warm_start_basis=None,
                           mesh=None):
         calls.append("df32" if config.carry == "df32" else config.dtype)
-        if not first["done"]:
-            first["done"] = True
+        if len(calls) == 1:
             return OptimizationResult(
                 status=SolveStatus.NUMERICAL_ERROR, stats=SolveStats()
             )
@@ -181,23 +176,27 @@ def test_escalation_ladder_prefers_df32_when_f64_emulated(monkeypatch):
     monkeypatch.setattr(
         driver_mod, "_solve_relaxation_once", failing_then_real
     )
-
-    from relp_tpu.config import SolverConfig
-    from relp_tpu.io import mps_to_general_form, parse_fixed
-
-    from conftest import reference_problem
-
-    path = reference_problem("netlib", "AFIRO.SIF")
-    with open(path) as f:
-        gf = mps_to_general_form(parse_fixed(f.read()))
+    gf = facility.general_form(facility.generate(5, 5, seed=0))
     gf.presolve()
-    counts = gf.standardize()
-    md = gf.derive_matrix_data(counts)
-    cfg = SolverConfig(dtype="float32", pad_to=64)
-    result = driver_mod.solve_relaxation(md, cfg)
-
-    assert calls[0] == "float32"
-    assert calls[1] == "df32"  # the ladder's first rung under emulated f64
+    md = gf.derive_matrix_data(gf.standardize())
+    result = driver_mod.solve_relaxation(md, SolverConfig(dtype="float32", pad_to=64))
     assert result.status is SolveStatus.FINITE_OPTIMUM
     assert result.stats.certified
+    return calls, result
+
+
+def test_escalation_ladder_prefers_df32_when_f64_emulated(monkeypatch):
+    """Where f64 is not native, an f32 solve that fails numerically must
+    retry via the df32 rung before any f64 attempt, and record the rungs."""
+    calls, result = _ladder_run(monkeypatch, f64_native=False)
+    assert calls[:2] == ["float32", "df32"]
     assert result.stats.escalations == ["df32"]
+
+
+def test_escalation_ladder_skips_df32_when_f64_native(monkeypatch):
+    """Where f64 is native (CPU, GPU), the ladder goes straight from f32 to
+    f64; df32 stays a carry a user can pick."""
+    calls, result = _ladder_run(monkeypatch, f64_native=True)
+    assert calls[:2] == ["float32", "float64"]
+    assert "df32" not in calls
+    assert result.stats.escalations == ["float64"]

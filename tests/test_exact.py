@@ -225,7 +225,7 @@ def test_exact_cleanup_wall_clock_budget():
     budget the walk stops not-optimal after the first pivot check, so the
     caller (certify_and_repair -> escalation ladder) retries with a
     cleaner basis instead of grinding O(m^2) exact pivots for hours
-    (netlib CYCLE on the TPU bf16-noise path)."""
+    (netlib CYCLE under noisy default-precision scans)."""
     from relp_tpu.config import SolverConfig
     from relp_tpu.exact.certify import exact_cleanup
     from relp_tpu.data.elements import (

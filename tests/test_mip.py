@@ -1,7 +1,7 @@
 """Exact branch & bound (relp_tpu.mip) — beyond reference scope.
 
 The reference's README roadmap lists branch & bound as unimplemented and its
-miplib tests stop at root relaxations (/root/reference/tests/miplib/mod.rs);
+miplib tests stop at root relaxations (the reference's tests/miplib/mod.rs);
 here integer programs solve to certified rational optimality, with the open
 frontier batched through the scenario driver (all nodes share the constraint
 matrix; branches are rhs-only changes) and dual-warm-restarted from the root

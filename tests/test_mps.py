@@ -232,8 +232,9 @@ def test_import_file_frames_the_path(tmp_path):
 
 def test_rhs_on_cost_row_is_objective_constant():
     """An RHS entry targeting the objective row sets the objective constant
-    (constant = -rhs, the standard MPS convention).  BEYOND REFERENCE: the
-    reference errors on such files and ships GROW15/GROW22 untested."""
+    (constant = -rhs, the standard MPS convention), in both the free and the
+    fixed-field parser.  BEYOND REFERENCE: the reference errors on such
+    files (netlib GROW15/GROW22 carry such RHS sections)."""
     text = SMALL.replace(
         "    RHS1      LIM1         4.0   LIM2         1.0",
         "    RHS1      COST        -5.0   LIM1         4.0\n"
@@ -244,10 +245,28 @@ def test_rhs_on_cost_row_is_objective_constant():
     gf = mps_to_general_form(mps)
     assert gf.fixed_cost == Fraction(5)
 
-    # GROW15-shaped regression: the real file parses and the constant is 0.
-    grow15 = open(
-        "/root/reference/tests/netlib/problem_files/GROW15.SIF"
-    ).read()
-    mps2 = parse_fixed(grow15)
-    assert mps2.objective_constant == 0
-    assert mps2.nr_rows() == 300
+    # Fixed-field parse (the netlib SIF layout): the same entry sets the
+    # constant; without it the constant is 0.
+    assert parse_fixed(FIXED).objective_constant == 0
+    fixed = parse_fixed(
+        FIXED.replace("RHS\n", "RHS\n    RHS       COST               2.5\n")
+    )
+    assert fixed.objective_constant == Fraction(-5, 2)
+    assert fixed.nr_rows() == 2
+    assert mps_to_general_form(fixed).fixed_cost == Fraction(-5, 2)
+
+
+# Fixed-field layout: fields start at columns 2, 5, 15, 25, 40 and 50.
+FIXED = """NAME          FIXEDCST
+ROWS
+ N  COST
+ L  R1
+ G  R2
+COLUMNS
+    X1        COST               1.0   R1                 1.0
+    X1        R2                 1.0
+    X2        COST               2.0   R1                 1.0
+RHS
+    RHS       R1                 4.0   R2                 1.0
+ENDATA
+"""

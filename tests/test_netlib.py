@@ -108,7 +108,7 @@ EXTRA_SLOW = {
 }
 # Degenerate-plateau holdouts: QAP12/QAP15 LP relaxations pin the float
 # phase-1 walk to a massive degenerate plateau (200k Bland pivots at a flat
-# objective); tracked in docs/ROADMAP.md.
+# objective); tracked in ROADMAP.md.
 EXTRA_OPEN = {"QAP12", "QAP15"}
 # (r4: the DFL001 certification holdout is gone — adaptive p-adic lifting
 # in exact/dixon.py certifies it in ~440 s; see netlib_extra_r4.)
@@ -120,7 +120,7 @@ def test_netlib_extra(name):
     from tests.netlib_expected import NETLIB_EXTRA
 
     if name in EXTRA_OPEN:
-        pytest.skip("degenerate-plateau holdout (see docs/ROADMAP.md)")
+        pytest.skip("degenerate-plateau holdout (see ROADMAP.md)")
     if name in EXTRA_SLOW and not RUN_SLOW:
         pytest.skip(f"slow on CPU ({EXTRA_SLOW[name]}); set RELP_TPU_RUN_SLOW=1")
     expected, tol = NETLIB_EXTRA[name]

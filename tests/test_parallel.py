@@ -281,7 +281,7 @@ def test_sharded_pivot_sequence_netlib():
 def test_newton_refresh_matches_refactorize():
     """Newton-Schulz refresh from a drifted inverse reaches the same basis
     quantities as a fresh factorization (kernels.newton_refresh — the
-    TPU-native replacement for batched linalg.inv in the batch driver)."""
+    matmul-only replacement for batched linalg.inv in the batch driver)."""
     import jax.numpy as jnp
 
     from relp_tpu.simplex import kernels
@@ -432,3 +432,74 @@ def test_solve_batch_device_refactor_cadence():
     assert b[0].status is SolveStatus.FINITE_OPTIMUM
     assert a[0].stats.certified and b[0].stats.certified
     assert a[0].exact_objective == b[0].exact_objective
+
+
+def _facility_problems(n, seed):
+    from relp_tpu.data import facility
+    from relp_tpu.simplex.lowering import lower_provider
+
+    base = facility.generate(5, 4, seed=seed)
+    rng = np.random.default_rng(seed)
+    problems = []
+    for _ in range(n):
+        inst = facility.with_demand_scale(base, rng.integers(80, 121, size=5))
+        gf = facility.general_form(inst)
+        md = gf.derive_matrix_data(gf.standardize())
+        problems.append(lower_provider(md, dtype=np.float32, pad_to=8))
+    return problems
+
+
+@pytest.mark.parametrize("stop_at_zero", [True, False])
+def test_batched_chunk_matches_single_lp_pivots(stop_at_zero):
+    """The vmapped batched chunk loop (the scenario driver's device path)
+    takes exactly the per-LP pivots of the single-LP kernel: same basis,
+    iteration count and status after each chunk, for phase 1 (stop at zero
+    artificial cost) and for an uninterrupted walk."""
+    import jax.numpy as jnp
+
+    from relp_tpu.parallel.batch import batched_run_chunk, make_batch_state
+    from relp_tpu.simplex import kernels
+    from relp_tpu.simplex.engine import DenseEngine
+
+    problems = _facility_problems(3, seed=7)
+    cfg = SolverConfig(pad_to=8)
+    engine = DenseEngine()
+    kw = dict(
+        pricing=kernels.PRICE_STEEPEST, chunk=15, opt_tol=1e-5,
+        pivot_tol=1e-5, degen_tol=1e-5, stop_at_zero=stop_at_zero,
+    )
+    singles = []
+    for pr in problems:
+        st = engine.init_state(pr, cfg)
+        A = jnp.asarray(pr.A)
+        st = engine.recompute_gamma(st, A)
+        singles.append((st, A, jnp.asarray(pr.c_phase1), jnp.asarray(pr.candidate_mask)))
+    batch = make_batch_state([s[0] for s in singles])
+    A_b = jnp.stack([s[1] for s in singles])
+    c_b = jnp.stack([s[2] for s in singles])
+    m_b = jnp.stack([s[3] for s in singles])
+    states = [s[0] for s in singles]
+    for _ in range(3):
+        states = [
+            kernels.run_chunk(st, A, A, c, m, **kw)
+            for st, (_, A, c, m) in zip(states, singles)
+        ]
+        batch = batched_run_chunk(batch, A_b, A_b, c_b, m_b, **kw)
+        for k, st in enumerate(states):
+            assert np.array_equal(np.asarray(batch.basis[k]), np.asarray(st.basis))
+            assert int(batch.iteration[k]) == int(st.iteration)
+            assert int(batch.status[k]) == int(st.status)
+    assert sum(int(st.iteration) for st in states) > 0
+
+
+def test_multidevice_dryrun_on_four_devices():
+    """__graft_entry__.dryrun_multichip on 4 of the virtual CPU devices:
+    batch x col and column-sharded solves agree exactly with unsharded ones,
+    and the sharded pivot sequence equals the single-device one."""
+    import __graft_entry__
+
+    lines = []
+    out = __graft_entry__.dryrun_multichip(4, report=lines.append)
+    assert out["pivot_sequence_equal"] and out["pivots_compared"] > 0
+    assert out["batch_mesh"] == (2, 2)
+    assert any("on devices [0, 1, 2, 3]" in line for line in lines)

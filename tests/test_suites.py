@@ -229,7 +229,7 @@ def test_miplib_50v():
 
 @pytest.mark.skipif(
     not __import__("os").environ.get("RELP_TPU_RUN_SLOW"),
-    reason="~21 min (solved + exactly certified on the TPU chip: objective 0, "
+    reason="~21 min (solved + exactly certified on an accelerator: objective 0, "
     "41 simplex iterations; the reference ignores this problem as too "
     "computationally expensive). Set RELP_TPU_RUN_SLOW=1 to run.",
 )
